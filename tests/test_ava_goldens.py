@@ -14,7 +14,7 @@ reference's, see tests/test_e2e_quality.py).
 
 The kC case and the kF FASTQ+PAF case run in the default suite (the
 Myers/WFA host aligner covers the 8,016 ava overlaps in seconds); the kF
-format variants (FASTA / MHAP) are gated behind RACON_TPU_SLOW_TESTS=1 and
+format variants (FASTA / MHAP) are gated behind RACONX_SLOW_TESTS=1 and
 run in CI.
 """
 
@@ -24,9 +24,9 @@ import os
 
 import pytest
 
-from racon_tpu.models.polish_model import PolisherConfig, PolisherType
-from racon_tpu.polisher import create_polisher
-from racon_tpu.native import loader
+from raconx.models.polish_model import PolisherConfig, PolisherType
+from raconx.polisher import create_polisher
+from raconx.native import loader
 
 if not loader.available():
     pytest.skip("native runtime unavailable", allow_module_level=True)
@@ -62,8 +62,8 @@ def test_kc_ava_paf_golden_counts(data_dir):
     ("sample_reads.fastq.gz", "sample_ava_overlaps.mhap.gz", 1658216, True),
 ])
 def test_kf_ava_golden_counts(data_dir, reads, ovl, ref_bp, gated):
-    if gated and not os.environ.get("RACON_TPU_SLOW_TESTS"):
-        pytest.skip("kF format variant; set RACON_TPU_SLOW_TESTS=1")
+    if gated and not os.environ.get("RACONX_SLOW_TESTS"):
+        pytest.skip("kF format variant; set RACONX_SLOW_TESTS=1")
     n, total = _run(data_dir, reads, ovl, PolisherType.kF, False, passes=4)
     assert n == 236  # exact match with the reference golden
     assert abs(total - ref_bp) / ref_bp < 0.01

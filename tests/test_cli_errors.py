@@ -9,7 +9,7 @@ import contextlib
 
 import pytest
 
-from racon_tpu import cli
+from raconx import cli
 
 
 def _run_cli(argv):
@@ -80,8 +80,8 @@ def test_invalid_type_error():
     # reference: PolisherCreateErrorType (racon_test.cpp:55-60); the CLI
     # cannot express an invalid type, so this goes through the factory like
     # the gtest does.
-    from racon_tpu.errors import RaconError
-    from racon_tpu.polisher import create_polisher, PolisherConfig
+    from raconx.errors import RaconError
+    from raconx.polisher import create_polisher, PolisherConfig
 
     with pytest.raises(RaconError,
                        match=r"\[racon::createPolisher\] error: invalid "

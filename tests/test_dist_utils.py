@@ -6,8 +6,8 @@ import sys
 
 import numpy as np
 
-from racon_tpu.parallel import dist
-from racon_tpu.utils.logger import Logger
+from raconx.parallel import dist
+from raconx.utils.logger import Logger
 
 
 def test_shard_range_partitions_exactly():
@@ -67,7 +67,7 @@ def test_gather_to0_single_process_fallback():
     dist.is_active(), and single-process tests reach them via the public
     API too."""
     import numpy as np
-    from racon_tpu.parallel import dist
+    from raconx.parallel import dist
 
     items = [np.arange(3, dtype=np.uint8), np.zeros(0, np.uint8),
              np.array([7, 9], np.uint8)]

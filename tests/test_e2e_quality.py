@@ -20,9 +20,9 @@ import os
 
 import pytest
 
-from racon_tpu.models.polish_model import PolisherConfig, PolisherType
-from racon_tpu.polisher import create_polisher
-from racon_tpu.native import loader
+from raconx.models.polish_model import PolisherConfig, PolisherType
+from raconx.polisher import create_polisher
+from raconx.native import loader
 
 if not loader.available():
     pytest.skip("native runtime unavailable", allow_module_level=True)
@@ -37,7 +37,7 @@ def _fa(path):
 
 
 def test_polish_fastq_sam_beats_reference_golden(data_dir):
-    from racon_tpu.native import bindings
+    from raconx.native import bindings
     cfg = PolisherConfig(backend="native", num_threads=4, match=5,
                          mismatch=-4, gap=-8)
     p = create_polisher(os.path.join(data_dir, "sample_reads.fastq.gz"),
@@ -81,7 +81,7 @@ def test_full_golden_matrix_beats_reference(data_dir, reads, ovl, m, x, g, w,
     our consensus must beat the reference's own pinned edit distance.
     In the default suite since the Myers/WFA host aligner (round 2) made
     the overlap-alignment stage seconds-fast on CPU."""
-    from racon_tpu.native import bindings
+    from raconx.native import bindings
     cfg = PolisherConfig(backend="auto", num_threads=os.cpu_count() or 4,
                          match=m, mismatch=x, gap=g, window_length=w)
     p = create_polisher(os.path.join(data_dir, reads),

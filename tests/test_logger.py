@@ -3,7 +3,7 @@
 import io
 from contextlib import redirect_stderr
 
-from racon_tpu.utils.logger import Logger
+from raconx.utils.logger import Logger
 
 
 def _bar_lines(text):

@@ -1,25 +1,24 @@
-"""Myers bit-parallel align kernel vs the scored banded-NW path.
+"""Myers bit-parallel align sweep + walk vs the scored banded-NW path.
 
 For (0, -1, -1) scores with uniform deletion costs the Myers sweep+walk
-must decode to op lists BIT-IDENTICAL to the packed2 fused path (same
-band geometry, same DIAG > UP > LEFT move priority), including escape
-behavior on band exits and >63-deletion rows."""
-
-import functools
+must decode to op lists BIT-IDENTICAL to the scored fused path (same band
+geometry, same DIAG > UP > LEFT move priority), including escape behavior
+on band exits and >63-deletion rows, and to the native C++ aligner's. On
+CPU the sweep is myers_sweep_ref; the `gpu`-marked test compares the CUDA
+kernel with it on the card at the align tiers' real widths."""
 
 import numpy as np
 import pytest
 
-from racon_tpu.native import loader
+from raconx.native import loader
 
 if not loader.available():
     pytest.skip("native runtime unavailable", allow_module_level=True)
 
-from racon_tpu.native import bindings
-from racon_tpu.ops.myers_kernel import align_walk_myers_ref
-from racon_tpu.ops.nw_kernel import (align_walk_packed_core, encode,
-                                     nw_band_batch, pack_codes4,
-                                     pack_delbits, walk_steps, PAD_CODE)
+from raconx.native import bindings
+from raconx.ops.myers_kernel import align_walk_myers_batch
+from raconx.ops.nw_kernel import (align_walk_batch, encode, pack_codes4,
+                                  pack_delbits, walk_steps, PAD_CODE)
 
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 
@@ -61,10 +60,10 @@ def _decode_rows(payload, m, n):
 
 def _decode_packed2(q8, t8, m, n, m_cap, n_cap, w):
     dc8 = np.full((len(m), n_cap), -1, np.int8)
-    payload, score = align_walk_packed_core(
+    payload, score = align_walk_batch(
         pack_codes4(q8), pack_codes4(t8), pack_delbits(dc8), m, n,
         m_cap=m_cap, n_cap=n_cap, w_band=w, match=0, mismatch=-1, gap=-1,
-        nw_fn=functools.partial(nw_band_batch, interpret=True))
+        kernel=False)
     payload = np.asarray(payload)
     esc = payload[:, -1] != 0
     codes = np.ascontiguousarray(payload[:, :-1])
@@ -74,9 +73,9 @@ def _decode_packed2(q8, t8, m, n, m_cap, n_cap, w):
 
 
 def _myers_ops(q8, t8, m, n, m_cap, n_cap, w):
-    payload, _ = align_walk_myers_ref(
-        q8.astype(np.int32).T, t8.astype(np.int32).T, m, n,
-        m_cap=m_cap, n_cap=n_cap, w_band=w)
+    payload, _ = align_walk_myers_batch(
+        pack_codes4(q8), pack_codes4(t8), m, n, m_cap=m_cap, n_cap=n_cap,
+        w_band=w, kernel=False)
     return _decode_rows(payload, m, n)
 
 
@@ -151,76 +150,20 @@ def test_mixed_identical_and_empty():
 
 
 def test_unequal_caps_rejected_only_when_dlo_positive():
-    """The Myers path requires the same dlo <= 0 regime as the t8
-    kernels; equal caps (the align stage contract) always qualify."""
-    from racon_tpu.ops.nw_kernel import band_dlo
+    """The Myers path requires dlo <= 0 (the band starts at or left of
+    column 0); equal caps (the align stage contract) always qualify."""
+    from raconx.ops.nw_kernel import band_dlo
 
     assert band_dlo(128, 128, 64) <= 0
 
 
-def test_pallas_kernels_match_ref_interpret():
-    """Pallas sweep + walk (interpret mode) must produce byte-identical
-    payloads to the jnp reference on a B_LANE batch."""
-    from racon_tpu.ops.myers_kernel import (align_walk_myers_batch,
-                                            align_walk_myers_ref)
-    from racon_tpu.ops.nw_kernel import pack_codes4
-
-    rng = np.random.default_rng(61)
-    pairs = []
-    for _ in range(128):
-        tlen = int(rng.integers(8, 128))
-        t = rng.choice(ACGT, tlen)
-        q = _mutate(rng, t, int(rng.integers(0, tlen // 3 + 1)))[:128]
-        pairs.append((q, t))
-    q8, t8, m, n = _panels(pairs, 128, 128)
-    p_ref, _ = align_walk_myers_ref(
-        q8.astype(np.int32).T, t8.astype(np.int32).T, m, n,
-        m_cap=128, n_cap=128, w_band=64)
-    p_ker, _ = align_walk_myers_batch(
-        pack_codes4(q8), pack_codes4(t8), m, n,
-        m_cap=128, n_cap=128, w_band=64, interpret=True)
-    assert np.array_equal(np.asarray(p_ref), np.asarray(p_ker))
-
-
-def test_pallas_windowed_peq_multi_step():
-    """The sweep's Peq panels are pre-windowed per grid step
-    (build_peq_win_T); at m_cap=512/W=64 the sweep runs 4 grid steps
-    (rows_g=128), so the cross-step base-word arithmetic
-    (base_g = (g*rg + dlo + guard) >> 5 and the in-step w0_local funnel
-    offsets) is exercised across panel boundaries. Payloads must stay
-    byte-identical to the jnp reference, which reads the FULL Peq mask."""
-    from racon_tpu.ops.myers_kernel import (align_walk_myers_batch,
-                                            align_walk_myers_ref,
-                                            sweep_rows_g)
-    from racon_tpu.ops.nw_kernel import pack_codes4
-
-    assert 512 // sweep_rows_g(512, 64) >= 4  # multi-step by construction
-    rng = np.random.default_rng(71)
-    pairs = []
-    for _ in range(128):
-        tlen = int(rng.integers(256, 512))
-        t = rng.choice(ACGT, tlen)
-        q = _mutate(rng, t, int(rng.integers(0, 24)))[:512]
-        pairs.append((q, t))
-    q8, t8, m, n = _panels(pairs, 512, 512)
-    p_ref, _ = align_walk_myers_ref(
-        q8.astype(np.int32).T, t8.astype(np.int32).T, m, n,
-        m_cap=512, n_cap=512, w_band=64)
-    p_ker, _ = align_walk_myers_batch(
-        pack_codes4(q8), pack_codes4(t8), m, n,
-        m_cap=512, n_cap=512, w_band=64, interpret=True)
-    assert np.array_equal(np.asarray(p_ref), np.asarray(p_ker))
-
-
 def test_mesh_sharded_myers_matches_single():
-    """fmt="myers" through sharded_align_walk on the 8-device CPU mesh
-    (jnp twin per shard) must produce the same payload bytes as the
-    single-device reference."""
+    """The Myers core sharded over the 8-device CPU mesh must produce the
+    same payload bytes as the single-device dispatch."""
     import jax
 
-    from racon_tpu.ops.myers_kernel import align_walk_myers_ref
-    from racon_tpu.ops.nw_kernel import pack_codes4, pack_delbits
-    from racon_tpu.parallel.mesh import sharded_align_walk, window_mesh
+    from raconx.ops.myers_kernel import align_walk_myers_core
+    from raconx.parallel.mesh import sharded_align_walk, window_mesh
 
     devs = jax.devices("cpu")
     if len(devs) < 8:
@@ -235,121 +178,89 @@ def test_mesh_sharded_myers_matches_single():
         pairs.append((q, t))
     q8, t8, m, n = _panels(pairs, 128, 128)
     q4, t4 = pack_codes4(q8), pack_codes4(t8)
-    dcb = pack_delbits(np.full((64, 128), -1, np.int8))
-    payload, score = sharded_align_walk(
-        mesh, q4, t4, dcb, m, n, m_cap=128, n_cap=128, w_band=64,
-        match=0, mismatch=-1, gap=-1, interpret=True, fmt="myers")
-    p_ref, _ = align_walk_myers_ref(
-        q8.astype(np.int32).T, t8.astype(np.int32).T, m, n,
-        m_cap=128, n_cap=128, w_band=64)
+    kw = dict(m_cap=128, n_cap=128, w_band=64, kernel=False)
+    payload, _ = sharded_align_walk(mesh, align_walk_myers_core,
+                                    (q4, t4, m, n), **kw)
+    assert payload.sharding.mesh.devices.size == 8
+    p_ref, _ = align_walk_myers_batch(q4, t4, m, n, **kw)
     assert np.array_equal(np.asarray(payload), np.asarray(p_ref))
 
 
-def test_moves_from_planes_matches_scored_planes():
-    """myers_moves_from_planes must reproduce nw_band_batch_ref's 2-bit
-    move planes bit-for-bit at every cell a walk can read (i <= m,
-    in-band): the DIAG/UP predicates decode under the shared
-    DIAG > UP > LEFT priority to exactly the scored argmax codes."""
-    from racon_tpu.ops.myers_kernel import (build_peq_T,
-                                            myers_moves_from_planes,
-                                            myers_sweep_ref, sweep_rows_g)
-    from racon_tpu.ops.nw_kernel import band_dlo, nw_band_batch_ref
-
-    rng = np.random.default_rng(17)
-    m_cap = n_cap = 256
-    W = 128
+@pytest.mark.parametrize("w", [64, 128, 256])
+@pytest.mark.parametrize("rate", [0.02, 0.12, 0.25])
+def test_myers_matches_native_aligner(w, rate):
+    """Device-path op lists equal the native edit-distance aligner's (the
+    native align stage) whenever the device walk does not escape."""
+    rng = np.random.default_rng(int(rate * 100) + w)
+    cap = 256
     pairs = []
-    for _ in range(8):
-        tlen = int(rng.integers(150, n_cap))
+    for _ in range(24):
+        tlen = int(rng.integers(cap // 2, cap - 16))
         t = rng.choice(ACGT, tlen)
-        q = _mutate(rng, t, int(tlen * 0.15))[:m_cap]
-        pairs.append((q, t))
-    q8, t8, m, n = _panels(pairs, m_cap, n_cap)
-    B = len(m)
-
-    gc = np.zeros((B, n_cap + 1), np.int32)
-    gc[:, 1:] = -np.cumsum(np.ones((B, n_cap), np.int32), axis=1)
-    moves_ref, _ = nw_band_batch_ref(
-        q8.astype(np.int32), t8.astype(np.int32), gc, m_cap=m_cap,
-        n_cap=n_cap, w_band=W, match=0, mismatch=-1, gap=-1)
-    # the ref pads its batch to B_TILE: keep the real items only
-    want = np.asarray(moves_ref)[:B].transpose(1, 2, 0)  # (m/16, W, B)
-
-    import jax.numpy as jnp
-    qT = jnp.asarray(q8.astype(np.int32).T)
-    tT = jnp.asarray(t8.astype(np.int32).T)
-    planes = np.asarray(myers_sweep_ref(qT, build_peq_T(tT, n_cap, W),
-                                        m_cap=m_cap, n_cap=n_cap, w_band=W))
-    rg = sweep_rows_g(m_cap, W)
-    planes_t = planes.reshape(m_cap // rg, rg * 2 * (W // 32), B)
-    got = np.asarray(myers_moves_from_planes(planes_t, m, m_cap=m_cap,
-                                             n_cap=n_cap, w_band=W))
-    assert got.shape == want.shape
-
-    def unpack(mv):
-        u = (2 * np.arange(16))[None, :, None, None]
-        return ((mv[:, None] >> u) & 3).reshape(m_cap, W, B)
-
-    i = np.arange(1, m_cap + 1)[:, None, None]
-    k = np.arange(W)[None, :, None]
-    jrow = i + band_dlo(m_cap, n_cap, W) + k
-    # readable region: walks only touch cells with i <= m and jrow <= n
-    # (the rle run-scan shifts out all groups ABOVE the current row and
-    # clamps runs by min(i, j); beyond-n cells hold scored PAD dynamics
-    # vs Myers mismatch semantics and legitimately differ)
-    mask = ((jrow >= 1) & (jrow <= n[None, None, :])
-            & (i <= m[None, None, :]))
-    assert np.array_equal(unpack(want)[mask], unpack(got)[mask])
-
-
-def test_myers_rle_walk_matches_scored_ops():
-    """Myers planes -> move transform -> the EXISTING rle walk must
-    decode to the same op lists as the scored packed2 oracle (the same
-    identity contract the rows walk carries), across mutation rates and
-    length mismatch."""
-    from racon_tpu.ops.myers_kernel import (build_peq_T,
-                                            myers_moves_from_planes,
-                                            myers_sweep_ref, sweep_rows_g)
-    from racon_tpu.ops.nw_kernel import rle_events, walk_moves_rle_t
-
-    rng = np.random.default_rng(23)
-    m_cap = n_cap = 256
-    W = 128
-    pairs = []
-    for rate in (0.02, 0.1, 0.25):
-        for _ in range(4):
-            tlen = int(rng.integers(120, n_cap))
-            t = rng.choice(ACGT, tlen)
-            q = _mutate(rng, t, int(tlen * rate))[:m_cap]
-            pairs.append((q, t))
-    q8, t8, m, n = _panels(pairs, m_cap, n_cap)
-    B = len(m)
-
-    import jax.numpy as jnp
-    qT = jnp.asarray(q8.astype(np.int32).T)
-    tT = jnp.asarray(t8.astype(np.int32).T)
-    planes = np.asarray(myers_sweep_ref(qT, build_peq_T(tT, n_cap, W),
-                                        m_cap=m_cap, n_cap=n_cap, w_band=W))
-    rg = sweep_rows_g(m_cap, W)
-    planes_t = planes.reshape(m_cap // rg, rg * 2 * (W // 32), B)
-    moves = myers_moves_from_planes(planes_t, m, m_cap=m_cap, n_cap=n_cap,
-                                    w_band=W)
-    events, escaped = walk_moves_rle_t(
-        moves, m, n, m_cap=m_cap, n_cap=n_cap, w_band=W,
-        max_events=rle_events(m_cap, n_cap, W))
-    ops, off, cnt = bindings.opstream_rle_to_ops_batch(
-        np.ascontiguousarray(np.asarray(events)),
-        rle_events(m_cap, n_cap, W), m, n, 2)
-    esc = np.asarray(escaped)
-
-    w_ops, w_off, w_cnt, w_esc = _decode_packed2(q8, t8, m, n, m_cap,
-                                                 n_cap, W)
-    n_checked = 0
-    for b in range(B):
-        if esc[b] or w_esc[b]:
+        pairs.append((_mutate(rng, t, int(tlen * rate))[:cap], t))
+    q8, t8, m, n = _panels(pairs, cap, cap)
+    ops, off, cnt, esc = _myers_ops(q8, t8, m, n, cap, cap, w)
+    qoff = np.concatenate([[0], np.cumsum(m)]).astype(np.int64)
+    toff = np.concatenate([[0], np.cumsum(n)]).astype(np.int64)
+    hops, hoff, hcnt = bindings.align_batch(
+        np.concatenate([a for a, _ in pairs]), qoff,
+        np.concatenate([b for _, b in pairs]), toff, 0, -1, -1, True, 2)
+    checked = 0
+    for b in range(len(pairs)):
+        if esc[b]:
             continue
-        a = ops[int(off[b]) : int(off[b]) + int(cnt[b])]
-        w = w_ops[int(w_off[b]) : int(w_off[b]) + int(w_cnt[b])]
-        assert np.array_equal(a, w), f"item {b}"
-        n_checked += 1
-    assert n_checked >= B - 2  # escapes must stay rare on these inputs
+        assert np.array_equal(ops[off[b] : off[b] + cnt[b]],
+                              hops[hoff[b] : hoff[b] + hcnt[b]]), b
+        checked += 1
+    assert checked >= len(pairs) // 2
+
+
+def test_myers_sweep_planes_layout():
+    """Planes are (B, m_cap, 2, W/32): the layout the CUDA kernel writes
+    (one warp per item, one row of DIAG then UP words at a time)."""
+    from raconx.ops.myers_kernel import myers_sweep_ref
+
+    q8 = np.full((3, 128), PAD_CODE, np.int8)
+    planes = myers_sweep_ref(q8, q8, m_cap=128, n_cap=128, w_band=128)
+    assert planes.shape == (3, 128, 2, 4) and planes.dtype == np.int32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap,w", [(2560, 512), (10240, 1024),
+                                   (10240, 4096)])
+def test_cuda_myers_matches_ref(gpu, cap, w):
+    from raconx.ops import cuda_kernels
+    from raconx.ops.myers_kernel import myers_sweep_ref
+
+    rng = np.random.default_rng(cap + w)
+    pairs = []
+    for _ in range(19):
+        tlen = int(rng.integers(cap // 2, cap - 64))
+        t = rng.choice(ACGT, tlen)
+        pairs.append((_mutate(rng, t, int(tlen * 0.12))[:cap], t))
+    q8, t8, _, _ = _panels(pairs, cap, cap)
+    got = cuda_kernels.myers_sweep(q8, t8, w_band=w)
+    want = myers_sweep_ref(q8, t8, m_cap=cap, n_cap=cap, w_band=w)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap,w", [(2560, 512), (10240, 1024),
+                                   (10240, 4096)])
+def test_cuda_myers_walk_matches_ref(gpu, cap, w):
+    from raconx.ops import cuda_kernels
+    from raconx.ops.myers_kernel import myers_sweep_ref, myers_walk_ref
+
+    rng = np.random.default_rng(cap - w)
+    pairs = []
+    for _ in range(23):
+        tlen = int(rng.integers(cap // 2, cap - 64))
+        t = rng.choice(ACGT, tlen)
+        pairs.append((_mutate(rng, t, int(tlen * 0.12))[:cap], t))
+    pairs.append((pairs[0][1][:40].copy(), pairs[0][1]))  # must escape
+    q8, t8, m, n = _panels(pairs, cap, cap)
+    planes = myers_sweep_ref(q8, t8, m_cap=cap, n_cap=cap, w_band=w)
+    want, esc = myers_walk_ref(planes, m, n, m_cap=cap, n_cap=cap, w_band=w)
+    assert bool(np.asarray(esc)[-1])
+    got = cuda_kernels.myers_walk(planes, m, n, n_cap=cap)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))

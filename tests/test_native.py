@@ -5,14 +5,14 @@ import os
 import numpy as np
 import pytest
 
-from racon_tpu.native import loader
+from raconx.native import loader
 
 if not loader.available():
     pytest.skip("native runtime unavailable", allow_module_level=True)
 
-from racon_tpu.native import bindings
-from racon_tpu.ops import nw_host, poa_host
-from racon_tpu.core.breakpoints import breaking_points_from_ops
+from raconx.native import bindings
+from raconx.ops import nw_host, poa_host
+from raconx.core.breakpoints import breaking_points_from_ops
 
 
 def _rand_pair(rng, min_len=1, max_len=300, mut=0.15):
@@ -121,8 +121,8 @@ def test_breaking_points_batch_matches_oracle():
 
 
 def test_native_parsers_match_python(data_dir):
-    from racon_tpu.io import fastx, overlaps_io
-    from racon_tpu.core.store import SequenceStoreBuilder
+    from raconx.io import fastx, overlaps_io
+    from raconx.core.store import SequenceStoreBuilder
 
     # fastq
     p = os.path.join(data_dir, "sample_reads.fastq.gz")
@@ -223,7 +223,7 @@ def test_consensus_matches_python_oracle():
 
 
 def test_compose_slots_matches_numpy():
-    from racon_tpu.native import bindings
+    from raconx.native import bindings
 
     rng = np.random.default_rng(9)
     n_win = 17
@@ -247,7 +247,7 @@ def test_compose_slots_matches_numpy():
 
 
 def test_project_spans_matches_reference_rule():
-    from racon_tpu.native import bindings
+    from raconx.native import bindings
 
     rng = np.random.default_rng(10)
     n_win = 9
@@ -275,3 +275,28 @@ def test_project_spans_matches_reference_rule():
         if wb < 0.01 * n and we > n - 0.01 * n:
             wb, we = 0, n - 1
         assert (s0[i], s1[i]) == (wb, we), i
+
+
+@pytest.mark.parametrize("seed,rate", [(1, 0.04), (2, 0.04), (3, 0.25)])
+def test_long_edit_align_uses_dp_tie_order(seed, rate):
+    """Overlaps too big for the direct banded DP go through the wavefront
+    aligner; its traceback must pick the DP's own path among co-optimal
+    alignments (DIAG > UP > LEFT from the end), which is what the device
+    Myers walk emits — the align stage's output must not depend on the
+    backend. rate 0.25 (distance 1755) is past the resident-front budget,
+    so the traceback recomputes fronts from checkpoints."""
+    from raconx.ops.nw_host import nw_align
+
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, 4, 4000)
+    u = rng.random(len(t))
+    q = np.where(u < rate, rng.integers(0, 4, len(t)), t)
+    q = np.delete(q, np.flatnonzero((u >= rate) & (u < 2 * rate)))
+    q = np.insert(q, np.flatnonzero(rng.random(len(q)) < rate), 2)
+    qa, ta = acgt[q], acgt[t]
+    ops, off, cnt = bindings.align_batch(
+        qa, np.array([0, len(qa)]), ta, np.array([0, len(ta)]), 0, -1, -1,
+        True, 1)
+    _, want = nw_align(qa, ta, 0, -1, -1)
+    assert np.array_equal(ops[: cnt[0]], want)

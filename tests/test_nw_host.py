@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from racon_tpu.core.breakpoints import OP_MATCH, OP_INS, OP_DEL
-from racon_tpu.ops.nw_host import nw_align, edit_distance
+from raconx.core.breakpoints import OP_MATCH, OP_INS, OP_DEL
+from raconx.ops.nw_host import nw_align, edit_distance
 
 
 def brute_nw(q, t, m, x, g):

@@ -1,43 +1,54 @@
-"""Pallas banded-NW kernel vs the host oracle (interpret mode on CPU)."""
+"""Scored banded-NW sweep + device walk vs the host oracles.
+
+On CPU the sweep is nw_band_batch_ref (plain jax.numpy, the twin the CUDA
+kernel must reproduce bit for bit); the `gpu`-marked tests compare the CUDA
+kernel with it on the card, at the consensus tiers' real widths."""
 
 import numpy as np
 import pytest
 
-from racon_tpu.ops import nw_host
-from racon_tpu.ops.nw_kernel import nw_band_batch, encode, PAD_CODE
-from racon_tpu.ops.nw_walk import walk_moves
-from tests.test_nw_host import ops_consistent, score_of_ops
+from raconx.native import bindings
+from raconx.ops import nw_host
+from raconx.ops.nw_kernel import (align_walk_batch, encode, nw_band_batch_ref,
+                                  pack_codes4, pack_delbits, padded_batch,
+                                  pad_items, walk_moves_device, walk_steps,
+                                  PAD_CODE)
+from raconx.ops.nw_walk import walk_moves
+from test_nw_host import ops_consistent, score_of_ops
 
 M_CAP = N_CAP = 128
 W = 64
+SCORES = [(5, -4, -8), (3, -5, -4), (0, -1, -1)]
+ACGT = np.frombuffer(b"ACGT", np.uint8)
 
 
-def _run(pairs, scores, del_costs=None):
+def _inputs(pairs, gap, cap, del_costs=None):
     B = len(pairs)
-    q = np.full((B, M_CAP), PAD_CODE, np.int32)
-    t = np.full((B, N_CAP), PAD_CODE, np.int32)
-    gc = np.zeros((B, N_CAP + 1), np.int32)
-    gap = scores[2]
+    q = np.full((B, cap), PAD_CODE, np.int32)
+    t = np.full((B, cap), PAD_CODE, np.int32)
+    gc = np.zeros((B, cap + 1), np.int32)
+    dc8 = np.full((B, cap), gap, np.int8)
     for b, (qa, ta) in enumerate(pairs):
         q[b, : len(qa)] = encode(qa)
         t[b, : len(ta)] = encode(ta)
-        dc = np.full(N_CAP, gap, np.int32)
+        dc = np.full(cap, gap, np.int32)
         if del_costs is not None and del_costs[b] is not None:
             dc[: len(ta)] = del_costs[b]
+        dc8[b] = dc
         gc[b, 1:] = np.cumsum(dc)
-    moves, score = nw_band_batch(q, t, gc, m_cap=M_CAP, n_cap=N_CAP, w_band=W,
-                                 match=scores[0], mismatch=scores[1],
-                                 gap=scores[2], interpret=True)
+    return q, t, gc, dc8
+
+
+def _run(pairs, scores, del_costs=None, cap=M_CAP, w=W):
+    q, t, gc, _ = _inputs(pairs, scores[2], cap, del_costs)
+    moves, score = nw_band_batch_ref(q, t, gc, m_cap=cap, n_cap=cap,
+                                     w_band=w, match=scores[0],
+                                     mismatch=scores[1], gap=scores[2])
     moves = np.asarray(moves)
     score = np.asarray(score)
-    out = []
-    for b, (qa, ta) in enumerate(pairs):
-        ops = walk_moves(moves[b], len(qa), len(ta), M_CAP, N_CAP, W)
-        out.append((int(score[b, 0]), ops))
-    return out
-
-
-ACGT = np.frombuffer(b"ACGT", np.uint8)
+    return [(int(score[b, 0]),
+             walk_moves(moves[b], len(qa), len(ta), cap, cap, w))
+            for b, (qa, ta) in enumerate(pairs)]
 
 
 def _mutate(rng, t, n_mut):
@@ -54,20 +65,25 @@ def _mutate(rng, t, n_mut):
     return q
 
 
-@pytest.mark.parametrize("scores", [(5, -4, -8), (3, -5, -4), (0, -1, -1)])
-def test_kernel_matches_oracle_scores_and_ops(scores):
-    rng = np.random.default_rng(11)
+def _pairs(rng, count, lo, hi, n_mut):
     pairs = []
-    for _ in range(8):
-        t = rng.choice(ACGT, int(rng.integers(30, 60)))
-        q = _mutate(rng, t, 4)
-        pairs.append((q, t))
-    results = _run(pairs, scores)
-    for (q, t), (score, ops) in zip(pairs, results):
+    for _ in range(count):
+        t = rng.choice(ACGT, int(rng.integers(lo, hi)))
+        pairs.append((_mutate(rng, t, n_mut), t))
+    return pairs
+
+
+@pytest.mark.parametrize("cap,w", [(128, 64), (256, 128)])
+@pytest.mark.parametrize("scores", SCORES)
+def test_kernel_matches_oracle_scores_and_ops(scores, cap, w):
+    rng = np.random.default_rng(11)
+    pairs = _pairs(rng, 8, cap // 4, cap // 2, 4)
+    for (q, t), (score, ops) in zip(pairs, _run(pairs, scores, cap=cap,
+                                                w=w)):
         want_score, _ = nw_host.nw_align(q, t, *scores)
-        # kernel score includes the deterministic pad tail
-        pad_score = scores[0] * min(M_CAP - len(q), N_CAP - len(t)) + \
-            scores[2] * abs((M_CAP - len(q)) - (N_CAP - len(t)))
+        # the sweep's score includes the deterministic pad tail
+        pad_score = scores[0] * min(cap - len(q), cap - len(t)) + \
+            scores[2] * abs((cap - len(q)) - (cap - len(t)))
         assert score == want_score + pad_score
         assert ops_consistent(ops.tolist(), len(q), len(t))
         assert score_of_ops(ops.tolist(), q, t, *scores) == want_score
@@ -78,13 +94,8 @@ def test_kernel_exact_ops_vs_oracle_easy():
     matches the oracle exactly."""
     rng = np.random.default_rng(12)
     scores = (5, -4, -8)
-    pairs = []
-    for _ in range(6):
-        t = rng.choice(ACGT, 50)
-        q = _mutate(rng, t, 2)
-        pairs.append((q, t))
-    results = _run(pairs, scores)
-    for (q, t), (score, ops) in zip(pairs, results):
+    pairs = _pairs(rng, 6, 50, 51, 2)
+    for (q, t), (score, ops) in zip(pairs, _run(pairs, scores)):
         _, want = nw_host.nw_align(q, t, *scores)
         assert ops.tolist() == want.tolist()
 
@@ -119,10 +130,8 @@ def test_kernel_identical_sequences():
 def test_uplink_packing_roundtrip():
     """pack_codes4/pack_delbits (host) must invert exactly through the
     device-side unpackers."""
-    import numpy as np
     import jax
-    from racon_tpu.ops.nw_kernel import (pack_codes4, pack_delbits,
-                                         unpack_codes4, unpack_delbits)
+    from raconx.ops.nw_kernel import unpack_codes4, unpack_delbits
 
     rng = np.random.default_rng(5)
     q8 = rng.integers(0, 6, (7, 256)).astype(np.int8)
@@ -137,313 +146,142 @@ def test_uplink_packing_roundtrip():
     np.testing.assert_array_equal(got, dc8.astype(np.int32))
 
 
-def test_gather_path_matches_packed_path():
-    """Device-resident gather entry (blob + per-item metadata) must produce
-    the exact payload/score of the row-matrix path, including under the
-    multi-device CPU mesh (sharded_align_walk_gather)."""
+@pytest.mark.parametrize("percol", [False, True])
+@pytest.mark.parametrize("scores", SCORES)
+def test_fused_walk_matches_host_walk(scores, percol):
+    """The fused dispatch (unpack + sweep + device walk, packed 2-bit op
+    stream, native decoder) gives the op lists of the host walker over the
+    same moves, and those match the native C++ aligner."""
+    rng = np.random.default_rng(21)
+    gap = scores[2]
+    pairs = _pairs(rng, 12, 40, 100, 5)
+    dels = [None] * len(pairs)
+    if percol:
+        dels = [np.where(rng.random(len(t)) < 0.3, 0, gap).astype(np.int32)
+                for _, t in pairs]
+    q, t, gc, dc8 = _inputs(pairs, gap, M_CAP, dels)
+    m = np.array([len(a) for a, _ in pairs], np.int32)
+    n = np.array([len(b) for _, b in pairs], np.int32)
+    payload, score = align_walk_batch(
+        pack_codes4(q.astype(np.int8)), pack_codes4(t.astype(np.int8)),
+        pack_delbits(dc8), m, n, m_cap=M_CAP, n_cap=N_CAP, w_band=W,
+        match=scores[0], mismatch=scores[1], gap=gap, kernel=False)
+    payload = np.asarray(payload)
+    assert not payload[:, -1].any()
+    ops, off, cnt = bindings.opstream_packed_to_ops_batch(
+        np.ascontiguousarray(payload[:, :-1]), walk_steps(M_CAP, N_CAP, W),
+        m, n, 2)
+    want = _run(pairs, scores, del_costs=dels)
+    qoff = np.concatenate([[0], np.cumsum(m)]).astype(np.int64)
+    toff = np.concatenate([[0], np.cumsum(n)]).astype(np.int64)
+    dblob = np.concatenate([dc8[b, :n[b]] for b in range(len(pairs))])
+    hops, hoff, hcnt = bindings.align_batch_percol(
+        np.concatenate([a for a, _ in pairs]), qoff,
+        np.concatenate([b for _, b in pairs]), toff,
+        dblob.astype(np.int32), scores[0], scores[1], gap, 2)
+    for b in range(len(pairs)):
+        got = ops[off[b] : off[b] + cnt[b]]
+        assert np.array_equal(got, want[b][1]), b
+        assert np.array_equal(got, hops[hoff[b] : hoff[b] + hcnt[b]]), b
+
+
+def test_walk_flags_band_escape():
+    """A path that must leave the band (length mismatch past W/2) is
+    flagged escaped for the host fallback, never emitted truncated."""
+    rng = np.random.default_rng(3)
+    t = rng.choice(ACGT, 110)
+    pairs = [(t[:30].copy(), t), (t.copy(), t)]
+    q, tt, gc, _ = _inputs(pairs, -1, M_CAP)
+    moves, _ = nw_band_batch_ref(q, tt, gc, m_cap=M_CAP, n_cap=N_CAP,
+                                 w_band=W, match=0, mismatch=-1, gap=-1)
+    _, esc = walk_moves_device(moves, np.array([30, 110], np.int32),
+                               np.array([110, 110], np.int32), m_cap=M_CAP,
+                               n_cap=N_CAP, w_band=W,
+                               max_steps=walk_steps(M_CAP, N_CAP, W))
+    assert np.asarray(esc).tolist() == [True, False]
+
+
+@pytest.mark.parametrize("B,fixed_b,mesh,want", [
+    (1, None, 1, 16), (17, None, 1, 32), (1000, None, 1, 1024),
+    (1000, 4096, 1, 4096), (5000, 4096, 1, 5000), (20, None, 8, 32),
+    (30, 30, 4, 32)])
+def test_padded_batch(B, fixed_b, mesh, want):
+    assert padded_batch(B, fixed_b, mesh) == want
+
+
+def test_pad_items_are_empty_pad_rows():
+    q4 = np.zeros((3, 8), np.uint8)
+    m = np.array([5, 6, 7])
+    q4p, t4p, mp, np_ = pad_items(5, q4, q4, m, m)
+    assert q4p.shape == (5, 8) and (q4p[3:] == 0x55).all()
+    assert mp.tolist() == [5, 6, 7, 0, 0] and np_.dtype == np.int32
+    assert pad_items(3, q4, q4, m, m)[0] is q4
+
+
+def test_cuda_wrapper_rejects_unsupported_band():
+    """The kernel wrapper checks the band before touching nvcc or the
+    card, so an unsupported tier fails with a clear error everywhere."""
+    from raconx.ops import cuda_kernels
+
+    q = np.zeros((2, 128), np.int8)
+    with pytest.raises(ValueError, match="band 96"):
+        cuda_kernels.nw_band(q, q, np.zeros((2, 129), np.int32), w_band=96,
+                             match=1, mismatch=-1, gap=-1)
+    with pytest.raises(ValueError, match="band 96"):
+        cuda_kernels.myers_sweep(q, q, w_band=96)
+
+
+def test_cuda_build_command_targets_hopper():
     import jax
-    from racon_tpu.ops.nw_kernel import (
-        align_walk_batch, align_walk_gather_batch, device_put_blob,
-        pack_bits_flat, pack_codes4, pack_codes4_flat, pack_delbits)
-    from racon_tpu.parallel import mesh as pmesh
+    from raconx.ops import cuda_kernels
 
-    rng = np.random.default_rng(7)
-    cap, band = 256, 128
-    B = 16
-    gap = -8
-    lens_q = rng.integers(40, cap, B)
-    lens_t = rng.integers(40, cap, B)
-    # flat blobs with irregular (incl. odd) starts
-    qparts = [rng.integers(0, 5, L).astype(np.int8) for L in lens_q]
-    tparts = [rng.integers(0, 5, L).astype(np.int8) for L in lens_t]
-    qblob = np.concatenate(qparts)
-    tblob = np.concatenate(tparts)
-    dmask = rng.random(len(tblob)) < 0.3  # deletion-cost bit per column
-    qoff = np.concatenate([[0], np.cumsum(lens_q)])
-    toff = np.concatenate([[0], np.cumsum(lens_t)])
-
-    # row-matrix path inputs
-    q8 = np.full((B, cap), PAD_CODE, np.int8)
-    t8 = np.full((B, cap), PAD_CODE, np.int8)
-    dc8 = np.full((B, cap), gap, np.int8)
-    for b in range(B):
-        q8[b, : lens_q[b]] = qparts[b]
-        t8[b, : lens_t[b]] = tparts[b]
-        dc8[b, : lens_t[b]] = np.where(
-            dmask[toff[b] : toff[b] + lens_t[b]], gap, 0)
-    m = lens_q.astype(np.int32)
-    n = lens_t.astype(np.int32)
-    kw = dict(m_cap=cap, n_cap=cap, w_band=band, match=5, mismatch=-4,
-              gap=gap)
-    want_p, want_s = align_walk_batch(pack_codes4(q8), pack_codes4(t8),
-                                      pack_delbits(dc8), m, n,
-                                      interpret=True, **kw)
-
-    meta = np.stack([qoff[:-1], m, toff[:-1], n], axis=1).astype(np.int32)
-    got_p, got_s = align_walk_gather_batch(
-        pack_codes4_flat(qblob), pack_codes4_flat(tblob),
-        pack_bits_flat(dmask), meta, interpret=True, **kw)
-    np.testing.assert_array_equal(np.asarray(got_p), np.asarray(want_p))
-    np.testing.assert_array_equal(np.asarray(got_s), np.asarray(want_s))
-
-    # sharded over the virtual CPU mesh (blob replicated, meta sharded)
-    msh = pmesh.window_mesh()
-    got_p2, got_s2 = pmesh.sharded_align_walk_gather(
-        msh, device_put_blob(pack_codes4_flat(qblob), pad_value=0x55),
-        device_put_blob(pack_codes4_flat(tblob), pad_value=0x55),
-        device_put_blob(pack_bits_flat(dmask), pad_value=0xFF), meta,
-        interpret=True, **kw)
-    np.testing.assert_array_equal(np.asarray(got_p2), np.asarray(want_p))
-    np.testing.assert_array_equal(np.asarray(got_s2), np.asarray(want_s))
+    cmd = cuda_kernels.build_command("out.so")
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert jax.ffi.include_dir() in cmd
+    assert cmd[-1].endswith("kernels.cu")
 
 
-def test_word_wise_blob_gathers_match_oracle():
-    """_gather_nib_cols/_gather_bit_cols were reformulated word-wise
-    (int32 fetches + funnel realign + dense unpack — 8-30x fewer gathered
-    elements on TPU); outputs must stay element-exact vs a per-element
-    numpy oracle, including negative row_off band pads, odd starts, and
-    fetches clipped at the blob tail."""
-    import numpy as np
-    import jax.numpy as jnp
-    from racon_tpu.ops.nw_kernel import (_gather_bit_cols,
-                                         _gather_nib_cols, pack_bits_flat,
-                                         pack_codes4_flat)
-
-    rng = np.random.default_rng(17)
-    L = 5000  # deliberately not a power of two (tail-clip coverage)
-    blob_el = rng.integers(0, 6, L).astype(np.int8)
-    bits_el = rng.integers(0, 2, L).astype(np.uint8)
-    blob4 = pack_codes4_flat(blob_el)
-    bitsb = pack_bits_flat(bits_el)
-    B = 48
-    start = rng.integers(0, L - 700, B).astype(np.int32)
-    start[0] = L - 650  # rows run past the blob end (must stay fill)
-    length = rng.integers(1, 640, B).astype(np.int32)
-    length[0] = 640
-    for rows, row_off, fill in ((640, 0, 5), (640 + 2 * 64, -64, 5),
-                                (96, -8, 5)):
-        got = np.asarray(_gather_nib_cols(
-            jnp.asarray(blob4), jnp.asarray(start), jnp.asarray(length),
-            rows, row_off, fill))
-        want = np.full((rows, B), fill, np.int8)
-        for b in range(B):
-            for r in range(rows):
-                p = r + row_off
-                if 0 <= p < length[b] and start[b] + p < L:
-                    want[r, b] = blob_el[start[b] + p]
-                elif 0 <= p < length[b]:  # past-blob rows read pad nibbles
-                    e = start[b] + p
-                    want[r, b] = ((blob4[e >> 1] >> ((e & 1) << 2)) & 0xF
-                                  if e >> 1 < len(blob4) else 0)
-        np.testing.assert_array_equal(got, want)
-    for rows in (640, 96):
-        got = np.asarray(_gather_bit_cols(
-            jnp.asarray(bitsb), jnp.asarray(start), jnp.asarray(length),
-            rows, 1))
-        want = np.full((rows, B), 1, np.int32)
-        for b in range(B):
-            for r in range(rows):
-                if r < length[b]:
-                    e = start[b] + r
-                    want[r, b] = ((bitsb[e >> 3] >> (e & 7)) & 1
-                                  if e >> 3 < len(bitsb) else 0)
-        np.testing.assert_array_equal(got, want)
+# ---------------------------------------------------------------------- #
+# on the card: the CUDA kernel vs the jnp reference, equal bit for bit
+# ---------------------------------------------------------------------- #
 
 
-def test_transposed_core_matches_row_core():
-    """The transposed (sublane-band) fused core — the real-chip production
-    path — must produce the exact payload/score of the lane-major gather
-    core (pallas interpret mode for both)."""
-    import functools
-    import numpy as np
-    from racon_tpu.ops.nw_kernel import (
-        align_walk_gather_core, align_walk_gather_core_t, nw_band_batch,
-        pack_bits_flat, pack_codes4_flat)
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap,w", [(256, 128), (640, 128), (1280, 512),
+                                   (2560, 768), (10240, 2048)])
+def test_cuda_sweep_matches_ref(gpu, cap, w):
+    from raconx.ops import cuda_kernels
 
-    rng = np.random.default_rng(13)
-    cap, band, gap = 256, 128, -8
-    B = 128  # B_LANE granularity of the transposed kernel
-    lens_q = rng.integers(40, cap, B)
-    lens_t = rng.integers(40, cap, B)
-    qblob = np.concatenate(
-        [rng.integers(0, 5, L).astype(np.int8) for L in lens_q])
-    tblob = np.concatenate(
-        [rng.integers(0, 5, L).astype(np.int8) for L in lens_t])
-    dmask = rng.random(len(tblob)) < 0.3
-    qoff = np.concatenate([[0], np.cumsum(lens_q)])
-    toff = np.concatenate([[0], np.cumsum(lens_t)])
-    meta = np.stack([qoff[:-1], lens_q, toff[:-1], lens_t],
-                    axis=1).astype(np.int32)
-    kw = dict(m_cap=cap, n_cap=cap, w_band=band, match=5, mismatch=-4,
-              gap=gap)
-    q4, t4, db = (pack_codes4_flat(qblob), pack_codes4_flat(tblob),
-                  pack_bits_flat(dmask))
-    want_p, want_s = align_walk_gather_core(
-        q4, t4, db, meta,
-        nw_fn=functools.partial(nw_band_batch, interpret=True), **kw)
-    got_p, got_s = align_walk_gather_core_t(q4, t4, db, meta,
-                                            interpret=True, **kw)
-    np.testing.assert_array_equal(np.asarray(got_p), np.asarray(want_p))
-    np.testing.assert_array_equal(np.asarray(got_s), np.asarray(want_s))
+    rng = np.random.default_rng(cap + w)
+    pairs = _pairs(rng, 37, cap // 2, cap - 8, cap // 20)
+    q, t, gc, _ = _inputs(pairs, -8, cap)
+    kw = dict(match=5, mismatch=-4, gap=-8)
+    mv_k, sc_k = cuda_kernels.nw_band(q, t, gc, w_band=w, **kw)
+    mv_r, sc_r = nw_band_batch_ref(q, t, gc, m_cap=cap, n_cap=cap, w_band=w,
+                                   **kw)
+    np.testing.assert_array_equal(np.asarray(sc_k), np.asarray(sc_r))
+    np.testing.assert_array_equal(np.asarray(mv_k), np.asarray(mv_r))
 
 
-def test_packed_transposed_core_matches_row_core():
-    """The packed-rows transposed core (int8 panels + in-kernel gc
-    integration, nw_band_batch_t8) must produce the exact payload/score of
-    the lane-major packed core (pallas interpret mode for both)."""
-    import functools
-    import numpy as np
-    from racon_tpu.ops.nw_kernel import (
-        PAD_CODE, align_walk_packed_core, align_walk_packed_core_t,
-        nw_band_batch, pack_codes4, pack_delbits)
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap,w", [(640, 128), (2560, 768)])
+def test_cuda_walk_matches_ref(gpu, cap, w):
+    from raconx.ops import cuda_kernels
 
-    rng = np.random.default_rng(29)
-    cap, band, gap = 256, 128, -8
-    B = 128
-    m = rng.integers(40, cap, B).astype(np.int32)
-    n = rng.integers(40, cap, B).astype(np.int32)
-    q8 = np.full((B, cap), PAD_CODE, np.int8)
-    t8 = np.full((B, cap), PAD_CODE, np.int8)
-    dc8 = np.zeros((B, cap), np.int8)
-    for i in range(B):
-        q8[i, : m[i]] = rng.integers(0, 5, m[i])
-        t8[i, : n[i]] = rng.integers(0, 5, n[i])
-        dc8[i] = np.where(rng.random(cap) < 0.3, 0, gap)  # optional columns
-    q4, t4, dcb = pack_codes4(q8), pack_codes4(t8), pack_delbits(dc8)
-    kw = dict(m_cap=cap, n_cap=cap, w_band=band, match=5, mismatch=-4,
-              gap=gap)
-    want_p, want_s = align_walk_packed_core(
-        q4, t4, dcb, m, n,
-        nw_fn=functools.partial(nw_band_batch, interpret=True), **kw)
-    got_p, got_s = align_walk_packed_core_t(q4, t4, dcb, m, n,
-                                            interpret=True, **kw)
-    np.testing.assert_array_equal(np.asarray(got_p), np.asarray(want_p))
-    np.testing.assert_array_equal(np.asarray(got_s), np.asarray(want_s))
-
-
-def test_bigtier_core_matches_row_core():
-    """The big-tier (pre-windowed, 3-D grid) transposed core — used for
-    overlap-alignment caps whose panels exceed the VMEM budget — must
-    produce the exact payload/score of the lane-major packed core."""
-    import functools
-    import numpy as np
-    from racon_tpu.ops.nw_kernel import (
-        PAD_CODE, align_walk_packed_core, align_walk_packed_core_rle_tbig,
-        align_walk_packed_core_rle_t, nw_band_batch, pack_codes4,
-        pack_delbits, rle_events, walk_steps)
-    from racon_tpu.native import bindings
-
-    rng = np.random.default_rng(31)
-    cap, band, gap = 256, 128, -1
-    B = 128
-    m = rng.integers(40, cap, B).astype(np.int32)
-    n = np.clip(m + rng.integers(-30, 30, B), 1, cap).astype(np.int32)
-    q8 = np.full((B, cap), PAD_CODE, np.int8)
-    t8 = np.full((B, cap), PAD_CODE, np.int8)
-    dc8 = np.full((B, cap), gap, np.int8)
-    for i in range(B):
-        q8[i, : m[i]] = rng.integers(0, 5, m[i])
-        L = min(m[i], n[i])
-        t8[i, : n[i]] = rng.integers(0, 5, n[i])
-        t8[i, :L] = q8[i, :L]
-        errs = rng.choice(L, max(1, L // 8), replace=False)
-        t8[i, errs] = rng.integers(0, 5, len(errs))
-    q4, t4, dcb = pack_codes4(q8), pack_codes4(t8), pack_delbits(dc8)
-    kw = dict(m_cap=cap, n_cap=cap, w_band=band, match=0, mismatch=-1,
-              gap=gap)
-    big_p, big_s = align_walk_packed_core_rle_tbig(q4, t4, dcb, m, n,
-                                                   interpret=True, **kw)
-    # compare via DECODED ops against the lane-major core (payload byte
-    # layouts may differ in SKIP padding, decoded op lists may not)
-    ref_p, ref_s = align_walk_packed_core(
-        q4, t4, dcb, m, n,
-        nw_fn=functools.partial(nw_band_batch, interpret=True), **kw)
-    np.testing.assert_array_equal(np.asarray(big_s), np.asarray(ref_s))
-    big_p = np.asarray(big_p)
-    assert not big_p[:, -1].any(), "unexpected band escape"
-    ops_b, off_b, cnt_b = bindings.opstream_rle_to_ops_batch(
-        np.ascontiguousarray(big_p[:, :-1]), rle_events(cap, cap, band),
-        m, n, 2)
-    ref_p = np.asarray(ref_p)
-    ops_r, off_r, cnt_r = bindings.opstream_packed_to_ops_batch(
-        np.ascontiguousarray(ref_p[:, :-1]), walk_steps(cap, cap, band),
-        m, n, 2)
-    np.testing.assert_array_equal(cnt_b, cnt_r)
-    for i in range(B):
-        np.testing.assert_array_equal(
-            ops_b[int(off_b[i]) : int(off_b[i]) + int(cnt_b[i])],
-            ops_r[int(off_r[i]) : int(off_r[i]) + int(cnt_r[i])])
-
-
-def test_gather_rle_core_matches_lane_major():
-    """align_walk_gather_core_rle_t — the stage-default payload path for
-    real-chip gather dispatches (gather_fmt auto returns "rle") — must
-    decode to the exact op lists of the lane-major gather core. Interpret
-    mode for both sweeps; the rle walk itself is pure jnp."""
-    import functools
-    import numpy as np
-    from racon_tpu.native import bindings
-    from racon_tpu.ops.nw_kernel import (
-        align_walk_gather_core, align_walk_gather_core_rle_t,
-        nw_band_batch, pack_bits_flat, pack_codes4_flat, rle_events,
-        walk_steps)
-
-    rng = np.random.default_rng(23)
-    cap, band, gap = 256, 128, -8
-    B = 128
-    # realistic consensus pairs (mutated copies): random-vs-random pairs
-    # with free-deletion columns drift along the band emitting one event
-    # per step, which legitimately blows the rle event budget — a payload
-    # property, not a bug; escapes fall back to the host in production
-    qparts, tparts = [], []
-    for _ in range(B):
-        tlen = int(rng.integers(60, cap))
-        t = rng.integers(0, 5, tlen).astype(np.int8)
-        q = t.copy()
-        for pos in rng.choice(tlen - 2, tlen // 10, replace=False):
-            q[pos] = rng.integers(0, 5)
-        nd = max(1, tlen // 40)
-        q = np.delete(q, rng.choice(len(q) - 2, nd, replace=False))
-        q = np.insert(q, rng.choice(len(q) - 2, nd, replace=False),
-                      rng.integers(0, 5, nd)).astype(np.int8)
-        qparts.append(q)
-        tparts.append(t)
-    lens_q = np.array([len(x) for x in qparts])
-    lens_t = np.array([len(x) for x in tparts])
-    qblob = np.concatenate(qparts)
-    tblob = np.concatenate(tparts)
-    dmask = rng.random(len(tblob)) < 0.3
-    qoff = np.concatenate([[0], np.cumsum(lens_q)])
-    toff = np.concatenate([[0], np.cumsum(lens_t)])
-    meta = np.stack([qoff[:-1], lens_q, toff[:-1], lens_t],
-                    axis=1).astype(np.int32)
-    kw = dict(m_cap=cap, n_cap=cap, w_band=band, match=5, mismatch=-4,
-              gap=gap)
-    q4, t4, db = (pack_codes4_flat(qblob), pack_codes4_flat(tblob),
-                  pack_bits_flat(dmask))
-    rle_p, rle_s = align_walk_gather_core_rle_t(q4, t4, db, meta,
-                                                interpret=True, **kw)
-    ref_p, ref_s = align_walk_gather_core(
-        q4, t4, db, meta,
-        nw_fn=functools.partial(nw_band_batch, interpret=True), **kw)
-    np.testing.assert_array_equal(np.asarray(rle_s), np.asarray(ref_s))
-    rle_p, ref_p = np.asarray(rle_p), np.asarray(ref_p)
-    # free-deletion columns let paths between random pairs drift to the
-    # band edge: those escape in BOTH formats (flags must agree); decoded
-    # ops must match on everything else
-    np.testing.assert_array_equal(rle_p[:, -1] != 0, ref_p[:, -1] != 0)
-    keep = np.flatnonzero(rle_p[:, -1] == 0)
-    assert len(keep) >= B // 2
-    m = meta[:, 1].astype(np.int64)
-    n = meta[:, 3].astype(np.int64)
-    ops_a, off_a, cnt_a = bindings.opstream_rle_to_ops_batch(
-        np.ascontiguousarray(rle_p[:, :-1]), rle_events(cap, cap, band),
-        m, n, 2)
-    ops_b, off_b, cnt_b = bindings.opstream_packed_to_ops_batch(
-        np.ascontiguousarray(ref_p[:, :-1]), walk_steps(cap, cap, band),
-        m, n, 2)
-    np.testing.assert_array_equal(cnt_a[keep], cnt_b[keep])
-    for i in keep:
-        np.testing.assert_array_equal(
-            ops_a[int(off_a[i]) : int(off_a[i]) + int(cnt_a[i])],
-            ops_b[int(off_b[i]) : int(off_b[i]) + int(cnt_b[i])])
+    rng = np.random.default_rng(cap - w)
+    pairs = _pairs(rng, 45, cap // 2, cap - 8, cap // 20)
+    # one band escape: a query far shorter than its target
+    pairs.append((pairs[0][1][: cap // 8].copy(), pairs[0][1]))
+    q, t, gc, _ = _inputs(pairs, -8, cap)
+    m = np.array([len(a) for a, _ in pairs], np.int32)
+    n = np.array([len(b) for _, b in pairs], np.int32)
+    moves, _ = nw_band_batch_ref(q, t, gc, m_cap=cap, n_cap=cap, w_band=w,
+                                 match=5, mismatch=-4, gap=-8)
+    steps = walk_steps(cap, cap, w)
+    codes, esc = walk_moves_device(moves, m, n, m_cap=cap, n_cap=cap,
+                                   w_band=w, max_steps=steps, packed=True)
+    got = cuda_kernels.nw_walk(moves, m, n, m_cap=cap, n_cap=cap, w_band=w,
+                               max_steps=steps)
+    want = np.concatenate([np.asarray(codes), np.asarray(esc)[:, None]], 1)
+    assert want[-1, -1] == 1
+    np.testing.assert_array_equal(np.asarray(got), want)

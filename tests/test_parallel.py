@@ -1,9 +1,9 @@
-"""Multi-device scale-out: pure-jax kernel twin + sharded polish step.
+"""Multi-device scale-out: the sharded fused dispatch vs one device.
 
-Runs on the virtual 8-device CPU mesh from conftest. Validates (a) that
-nw_band_batch_ref is bit-identical to the Pallas kernel (interpret mode),
-(b) that the sharded polish step produces the same op streams as the
-unsharded path, and (c) the driver-facing __graft_entry__ hooks.
+Runs on the virtual 8-device CPU mesh from conftest. Validates (a) that the
+sharded align+walk produces the same payloads as the unsharded path, with
+every shard's inputs placed on its own device, and (b) the driver-facing
+__graft_entry__ hooks.
 """
 
 import numpy as np
@@ -11,8 +11,9 @@ import pytest
 
 jax = pytest.importorskip("jax")
 
-from racon_tpu.ops.nw_kernel import (  # noqa: E402
-    nw_band_batch, nw_band_batch_ref, walk_moves_device, encode, PAD_CODE)
+from raconx.ops.nw_kernel import (  # noqa: E402
+    align_walk_batch, align_walk_core, encode, pack_codes4, pack_delbits,
+    walk_steps, PAD_CODE)
 
 
 M_CAP = N_CAP = 128
@@ -44,40 +45,35 @@ def _batch(B, seed=7):
     return q, t, gc, m, n
 
 
-def test_ref_matches_pallas_kernel_bitwise():
-    q, t, gc, _, _ = _batch(16)
-    mv1, s1 = nw_band_batch(q, t, gc, m_cap=M_CAP, n_cap=N_CAP, w_band=W,
-                            interpret=True, **SCORES)
-    mv2, s2 = nw_band_batch_ref(q, t, gc, m_cap=M_CAP, n_cap=N_CAP, w_band=W,
-                                **SCORES)
-    assert (np.asarray(s1) == np.asarray(s2)).all()
-    assert (np.asarray(mv1) == np.asarray(mv2)).all()
-
-
 def test_sharded_step_matches_unsharded():
-    from racon_tpu.parallel.mesh import window_mesh, polish_step_sharded
+    from raconx.parallel.mesh import sharded_align_walk, window_mesh
 
     devs = jax.devices("cpu")
     n_dev = min(8, len(devs))
     mesh = window_mesh(devs[:n_dev])
-    step = polish_step_sharded(mesh, m_cap=M_CAP, n_cap=N_CAP, w_band=W,
-                               interpret=True, **SCORES)
     B = 16 * n_dev
     q, t, gc, m, n = _batch(B)
-    codes_s, esc_s, score_s = jax.device_get(step(q, t, gc, m, n))
-
-    mv, score_u = nw_band_batch_ref(q, t, gc, m_cap=M_CAP, n_cap=N_CAP,
-                                    w_band=W, **SCORES)
-    codes_u, esc_u = jax.device_get(walk_moves_device(
-        mv, m, n, m_cap=M_CAP, n_cap=N_CAP, w_band=W,
-        max_steps=M_CAP + N_CAP))
-    assert (score_s == np.asarray(score_u)).all()
-    assert (codes_s == codes_u).all()
-    assert (esc_s == esc_u).all()
-    assert not esc_u.any()
+    dc8 = np.full(q.shape, SCORES["gap"], np.int8)
+    args = (pack_codes4(q.astype(np.int8)), pack_codes4(t.astype(np.int8)),
+            pack_delbits(dc8), m, n)
+    kw = dict(m_cap=M_CAP, n_cap=N_CAP, w_band=W, kernel=False, **SCORES)
+    pay_s, score_s = sharded_align_walk(mesh, align_walk_core, args, **kw)
+    # each device holds its own slice of the batch (no staging on one)
+    shards = pay_s.addressable_shards
+    assert len({sh.device for sh in shards}) == n_dev
+    assert all(sh.data.shape[0] == B // n_dev for sh in shards)
+    pay_u, score_u = align_walk_batch(*args, **kw)
+    pay_s, pay_u = jax.device_get((pay_s, pay_u))
+    assert (np.asarray(score_s) == np.asarray(score_u)).all()
+    assert (pay_s == pay_u).all()
+    assert not pay_u[:, -1].any()
     # op streams consume exactly the real characters of each item
+    codes = np.unpackbits(pay_u[:, :-1, None], axis=2, bitorder="little")
+    codes = codes.reshape(B, -1, 2)
+    steps = codes[..., 0] + 2 * codes[..., 1]
+    assert steps.shape[1] == walk_steps(M_CAP, N_CAP, W)
     for b in range(0, B, 17):
-        c = codes_s[b]
+        c = steps[b]
         assert ((c == 0) | (c == 1)).sum() == m[b]
         assert ((c == 0) | (c == 2)).sum() == n[b]
 

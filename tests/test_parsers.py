@@ -3,9 +3,9 @@ import os
 import numpy as np
 import pytest
 
-from racon_tpu.core.store import SequenceStoreBuilder
-from racon_tpu.io import fastx, overlaps_io, sniff
-from racon_tpu.errors import RaconError
+from raconx.core.store import SequenceStoreBuilder
+from raconx.io import fastx, overlaps_io, sniff
+from raconx.errors import RaconError
 
 
 def _load(path):

@@ -5,9 +5,9 @@ import gzip
 import numpy as np
 import pytest
 
-from racon_tpu.errors import RaconError
-from racon_tpu.models.polish_model import PolisherConfig, PolisherType
-from racon_tpu.polisher import create_polisher
+from raconx.errors import RaconError
+from raconx.models.polish_model import PolisherConfig, PolisherType
+from raconx.polisher import create_polisher
 
 
 def _write_synthetic(tmp_path, n_reads=12, seed=7):
@@ -40,7 +40,7 @@ def _write_synthetic(tmp_path, n_reads=12, seed=7):
 
 
 def test_polish_improves_draft(tmp_path):
-    from racon_tpu.ops.nw_host import edit_distance
+    from raconx.ops.nw_host import edit_distance
     true, draft = _write_synthetic(tmp_path)
     cfg = PolisherConfig(backend="python", window_length=200,
                          quality_threshold=10.0)
@@ -133,7 +133,7 @@ def test_fragment_correction_mode(tmp_path):
     out = p.polish(drop_unpolished_sequences=True)
     assert len(out) == 6
     # corrected reads should be closer to truth than originals
-    from racon_tpu.ops.nw_host import edit_distance
+    from raconx.ops.nw_host import edit_distance
     for (name, data), (_, orig) in zip(out, reads):
         assert name.startswith(b"r")
         assert b"r LN:i:" in name  # kF adds the "r" tag
@@ -146,7 +146,7 @@ def test_ngs_mode_short_reads_no_trimming(tmp_path):
     window type (reference: src/polisher.cpp:276-277) and consensus ends
     are NOT coverage-trimmed (trimming is a kTGS-only rule,
     src/window.cpp:118-139)."""
-    from racon_tpu.core.windows import WINDOW_TYPE_NGS
+    from raconx.core.windows import WINDOW_TYPE_NGS
 
     rng = np.random.default_rng(3)
     true = rng.choice(list(b"ACGT"), 700).astype(np.uint8)

@@ -1,7 +1,7 @@
 import numpy as np
 
-from racon_tpu.ops.poa_host import StarGraph, consensus_window
-from racon_tpu.ops.nw_host import nw_align
+from raconx.ops.poa_host import StarGraph, consensus_window
+from raconx.ops.nw_host import nw_align
 
 
 def _arr(s: bytes) -> np.ndarray:

@@ -4,11 +4,11 @@ filtering, breaking-point walks, reverse complements."""
 import numpy as np
 import pytest
 
-from racon_tpu.core.breakpoints import (breaking_points_from_cigar,
+from raconx.core.breakpoints import (breaking_points_from_cigar,
                                         cigar_to_ops, OP_MATCH, OP_INS, OP_DEL)
-from racon_tpu.core.overlaps import OverlapTable
-from racon_tpu.core.store import SequenceStoreBuilder
-from racon_tpu.io.overlaps_io import sam_cigar_accounting
+from raconx.core.overlaps import OverlapTable
+from raconx.core.store import SequenceStoreBuilder
+from raconx.io.overlaps_io import sam_cigar_accounting
 
 
 def test_sam_accounting_forward():

@@ -13,9 +13,9 @@ import os
 import numpy as np
 import pytest
 
-from racon_tpu.core.overlaps import OverlapTable, _kc_scan
-from racon_tpu.io.sniff import open_overlap_parser
-from racon_tpu.native import loader
+from raconx.core.overlaps import OverlapTable, _kc_scan
+from raconx.io.sniff import open_overlap_parser
+from raconx.native import loader
 
 
 def test_kc_scan_reference_semantics():
@@ -57,8 +57,8 @@ def test_filtering_invariant_to_chunk_size(data_dir):
     even when query runs straddle chunk boundaries (the polisher's carry
     loop defers the open trailing run, like the reference's c/l
     bookkeeping)."""
-    from racon_tpu.core.store import SequenceStoreBuilder
-    from racon_tpu.io.sniff import open_sequence_parser
+    from raconx.core.store import SequenceStoreBuilder
+    from raconx.io.sniff import open_sequence_parser
 
     reads = open_sequence_parser(
         os.path.join(data_dir, "sample_reads.fastq.gz")).parse_store()
@@ -105,11 +105,11 @@ def test_fastx_stream_invariant_to_chunk_size(data_dir, fname, is_fastq,
                                               monkeypatch):
     """SequenceStore built from tiny stream chunks must equal the
     whole-file parse, including multi-record carries cut mid-record."""
-    from racon_tpu.io.sniff import open_sequence_parser
+    from raconx.io.sniff import open_sequence_parser
 
     path = os.path.join(data_dir, fname)
     whole = open_sequence_parser(path).parse_store()
-    monkeypatch.setenv("RACON_TPU_CHUNK_BYTES", "4096")
+    monkeypatch.setenv("RACONX_CHUNK_BYTES", "4096")
     small = open_sequence_parser(path).parse_store()
     assert small.names == whole.names
     np.testing.assert_array_equal(small.blob, whole.blob)
@@ -123,7 +123,7 @@ def test_fastq_stream_every_cut_position(tmp_path):
     """Regression: a chunk boundary right after a FASTQ header used to
     commit a bogus empty record and fail the next chunk as malformed.
     Sweep every cut position over a small file."""
-    from racon_tpu.native import bindings
+    from raconx.native import bindings
 
     path = str(tmp_path / "two.fastq")
     body = (b"@read1 extra\nACGTAC\nGT\n+\n!!!!!!!!\n"

@@ -11,7 +11,7 @@ import os
 import numpy as np
 import pytest
 
-from racon_tpu.tools import preprocess, rampler
+from raconx.tools import preprocess, rampler
 
 
 @pytest.fixture
@@ -123,7 +123,7 @@ def test_wrapper_split_run(tmp_path, monkeypatch, capfdbinary):
         b">ctg0\n" + draft[:1000].tobytes() + b"\n>ctg1\n"
         + draft[1000:].tobytes() + b"\n")
 
-    from racon_tpu.tools import wrapper
+    from raconx.tools import wrapper
     rc = wrapper.main(["--split", "1000", "-t", "2", "--backend", "native",
                        "reads.fasta", "ovl.paf", "draft.fasta"])
     assert rc == 0
